@@ -1,6 +1,6 @@
-"""driftscan_tpu — a TPU-native m-mode transit interferometry framework.
+"""driftscan_tpu — an m-mode transit interferometry framework in JAX.
 
-A from-scratch rebuild (in JAX/XLA/Pallas) of the capabilities of
+A from-scratch rebuild (in JAX/XLA) of the capabilities of
 ``radiocosmology/driftscan``: telescope modelling, beam-transfer-matrix
 generation via on-device spherical harmonic transforms, per-m SVD
 compression, Karhunen-Loeve foreground filtering, quadratic power spectrum
@@ -14,8 +14,7 @@ of the reference are preserved for compatibility.
 
 Precision: the reference computes everything in complex128
 (drift/core/telescope.py:814 and throughout).  We enable x64 in JAX by
-default; set DRIFTSCAN_TPU_X64=0 to run in single precision (faster on TPU
-for stages that tolerate it).
+default; set DRIFTSCAN_TPU_X64=0 to run in single precision.
 """
 
 import os
@@ -25,12 +24,12 @@ import jax
 if os.environ.get("DRIFTSCAN_TPU_X64", "1") != "0":
     jax.config.update("jax_enable_x64", True)
 
-# Full-f32 matmuls everywhere: TPU MXUs run f32 contractions in bf16
-# passes by default, which injects ~1e-2 relative noise — measured to
-# violate the reference's beam_m rel-1e-4 accuracy tier, while "highest"
-# (bf16x6) costs nothing measurable on this pipeline's matmul mix.  The
-# accuracy tiers are contractual, so this is the library default
-# (override with DRIFTSCAN_TPU_MATMUL_PRECISION).
+# Full-f32 matmuls everywhere: on a GPU with tensor cores XLA may run
+# f32 contractions in TF32, which keeps ~10 mantissa bits (unit roundoff
+# ~5e-4) and breaks the reference's beam_m rel-1e-4 and KL rel-1e-4
+# accuracy tiers.  "highest" keeps full f32.  The accuracy tiers are
+# contractual, so this is the library default (override with
+# DRIFTSCAN_TPU_MATMUL_PRECISION).
 jax.config.update(
     "jax_default_matmul_precision",
     os.environ.get("DRIFTSCAN_TPU_MATMUL_PRECISION", "highest"),

@@ -97,7 +97,7 @@ class DoubleKL(kltransform.KLTransform):
 
         Uses the fully-factored two-stage pencil
         (ops.projections.doublekl_factored_batched) — both stages run
-        from covariance *factors* by QR whitening, so the TPU path keeps
+        from covariance *factors* by QR whitening, so the device path keeps
         the same accuracy story as the single-stage transform.  svcut
         padding never survives stage 1 (zero signal and foreground rows
         give S/F = 0 against the suppressed-thermal floor), so the

@@ -228,15 +228,6 @@ class ProductManager:
         with open(staged) as f:
             yconf = yaml.safe_load(f)
 
-        # product runs ride the same accuracy-gated on-chip picks the
-        # bench measures (env vars always win; missing records keep the
-        # library defaults) — see driftscan_tpu.engine_picks
-        from .. import engine_picks
-
-        adopted = engine_picks.adopt_decision_records()
-        if adopted:
-            logger.info("Adopted on-chip decision-record picks: %s", adopted)
-
         m = cls()
         m.apply_config(yconf)
         return m

@@ -14,7 +14,6 @@ import logging
 import os
 import time
 
-import h5py
 import numpy as np
 
 from .. import config
@@ -100,6 +99,8 @@ def decorrelate_ps(ps, fisher):
 
 
 def decorrelate_ps_file(fname):
+    import h5py
+
     with h5py.File(fname, "r") as f1:
         return decorrelate_ps(f1["powerspectrum"][:], f1["fisher"][:])
 
@@ -301,6 +302,8 @@ class PSEstimation(config.Reader, metaclass=abc.ABCMeta):
 
     def generate(self, regen=False):
         """Accumulate the total Fisher matrix and bias, and save."""
+        import h5py
+
         st = time.time()
         if comm.rank0():
             logger.info("======== Starting PS calculation ========")
@@ -377,9 +380,13 @@ class PSEstimation(config.Reader, metaclass=abc.ABCMeta):
 
     def fisher_file(self):
         """h5py handle of the Fisher file."""
+        import h5py
+
         return h5py.File(self.psdir + "fisher.hdf5", "r")
 
     def fisher_bias(self):
+        import h5py
+
         with h5py.File(self.psdir + "/fisher.hdf5", "r") as f:
             return f["fisher"][:], f["bias"][:]
 
@@ -503,6 +510,8 @@ class PSExact(PSEstimation):
         contraction; policies with their own projections (NoSVD etc.)
         fall back to the per-band path.
         """
+        import h5py
+
         self._bp_cache = []
 
         projs = None
@@ -539,6 +548,8 @@ class PSExact(PSEstimation):
                 os.remove(fn)
 
     def getproj(self, mi, bi):
+        import h5py
+
         if not self._use_disk(mi):
             return self._bp_cache[bi]
         with h5py.File(self._cfile % (mi, bi), "r") as f:

@@ -17,7 +17,7 @@ matter power spectrum with Kaiser redshift-space factors:
 with k = sqrt(k_par^2 + k_perp^2), k_perp = (l + 1/2)/chi_mean and
 F = 1 + f(z) mu^2.  The k_par quadrature is evaluated as a pair of
 (l, k_par) x (k_par, freq-pair) matmuls, so building the covariance (and
-the per-band C_l arrays of the PS estimator) runs on the MXU.
+the per-band C_l arrays of the PS estimator) runs as device matmuls.
 """
 
 from __future__ import annotations
@@ -271,25 +271,11 @@ class Corr21cm:
         w[0] = w[-1] = 0.5
         cosmat *= (w * dk)[:, None]
 
-        from .. import backend
-
-        if backend.device_f32_only() or not backend.device_available():
-            # Remote-attached f32-pair accelerators: the f64 quadrature
-            # matmul would ship ~(nk x nf^2) * 8 bytes each way over the
-            # slow host link and run as emulated dd-f64; host BLAS dgemm
-            # finishes this one-off build orders of magnitude sooner
-            # (measured: 256 freqs x lmax 1006 took >20 min via the
-            # device, ~10 s on host).
-            I0 = A0 @ cosmat
-            if use_kaiser:
-                I2 = A2 @ cosmat
-                I4 = A4 @ cosmat
-        else:
-            cosj = jnp.asarray(cosmat)
-            I0 = jnp.asarray(A0) @ cosj  # (nl, nf1*nf2)
-            if use_kaiser:
-                I2 = jnp.asarray(A2) @ cosj
-                I4 = jnp.asarray(A4) @ cosj
+        cosj = jnp.asarray(cosmat)
+        I0 = jnp.asarray(A0) @ cosj  # (nl, nf1*nf2)
+        if use_kaiser:
+            I2 = jnp.asarray(A2) @ cosj
+            I4 = jnp.asarray(A4) @ cosj
 
         nf1, nf2 = x1.size, x2.size
         pref = (T1[:, None] * T2[None, :]) * (D1[:, None] * D2[None, :]) / (

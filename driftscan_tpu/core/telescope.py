@@ -122,8 +122,8 @@ def sht_unit_chunks(n_units: int, npix: int, npol: int = 1):
 
     The beam-map + SHT program materialises several pixel-grid temporaries
     per unit (fringe phases, Stokes products, ring layout); an unbounded
-    unit batch at large nside exhausts HBM (measured: 1024 units at
-    nside 256 needs a 6 GB phase table alone).  The budget is
+    unit batch at large nside exhausts device memory (1024 units at
+    nside 256 need a 6 GB phase table alone).  The budget is
     ``DRIFTSCAN_TPU_SHT_BUDGET_GB`` (default 2.0) — the analogue of the
     reference's ``mem_chunk`` streaming ceiling
     (/root/reference/drift/core/beamtransfer.py:186,533-544).
@@ -136,8 +136,8 @@ def sht_unit_chunks(n_units: int, npix: int, npol: int = 1):
     budget = float(os.environ.get("DRIFTSCAN_TPU_SHT_BUDGET_GB", "2.0")) * 2**30
     per_unit = npix * 4.0 * 8.0 * max(npol, 1)  # ~8 f32 pixel temporaries
     # No lower floor above 1: at nside 1024 a polarised unit's pixel
-    # temporaries are ~1.6 GB, and a forced 8-unit chunk (the old floor)
-    # alone exceeded the device memory of a 16 GB chip.
+    # temporaries are ~1.6 GB, so a forced 8-unit chunk would need
+    # ~13 GB whatever the budget.
     cap = max(1, int(budget / max(per_unit, 1.0)))
     cap = 1 << (cap.bit_length() - 1)  # round down to a power of two
 
@@ -224,7 +224,7 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
 
     # Run the beam-map + SHT hot path in complex64.  The reference is
     # complex128 throughout; single precision is ample for the BTM itself
-    # (test tolerances are rel 1e-4) and much faster on TPU.
+    # (test tolerances are rel 1e-4) and halves its memory traffic.
     single_precision = config.Property(proptype=bool, default=False)
 
     # Tolerance (decimal places) when comparing baselines for equivalence.
@@ -644,9 +644,9 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
         margin knob, and at band limits just past a power-of-two
         boundary (e.g. lmax 1035) it quadruples the pixel grid for the
         few longest-baseline units, whose ring-padded geometry program
-        alone exceeds a 16 GB chip's HBM (measured: 17.0 GB at
-        nside 2048).  The cap trades that margin back for those units
-        only; everything at or below the cap is untouched.
+        alone takes ~17 GB at nside 2048.  The cap trades that margin
+        back for those units only; everything at or below the cap is
+        untouched.
         """
         ns = healpix.nside_for_lmax(int(lmax), accuracy_boost=self.accuracy_boost)
         cap = int(os.environ.get("DRIFTSCAN_TPU_NSIDE_CAP", "0") or 0)
@@ -778,8 +778,8 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
         (flat (nring*maxlen,); padding slots have horizon 0): every
         pixel-space op is elementwise, and the SHT then consumes the
         maps directly (``ring_padded=True``) instead of paying a
-        ~200M-element entry gather per call (~600 ms at nside 1024 —
-        TPU gathers run at ~2 GB/s).  Host beam evaluation still uses
+        ~200M-element entry gather per call at nside 1024.  Host beam
+        evaluation still uses
         the compact ``self._angpos``; its maps are padded on upload.
         """
         if self._nside == nside:
@@ -810,9 +810,9 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
         Beams are evaluated on the *host* CPU backend: they are small
         one-off per-(freq, beamclass) computations built from arbitrary
         subclass Python (possibly scipy), and eager dispatch of their op
-        chains to a remote accelerator costs far more than computing them
-        locally.  The batched hot path ships the cached maps to the
-        accelerator in one transfer.
+        chains to the accelerator costs more than computing them locally.
+        The batched hot path ships the cached maps to the accelerator in
+        one transfer.
         """
         import jax
 
@@ -846,9 +846,9 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
         return self._beam_cache[key]
 
     # Device-resident unique-beam cache: (nside, freq, beamclass) ->
-    # jnp array.  On a remote-attached TPU the link runs at ~10-30 MB/s;
-    # re-shipping the unique beams every unit chunk dominated the
-    # large-nside BTM phase (measured 13 s of a 16 s chunk at nside 512).
+    # jnp array, so the unique beams cross the host link once per
+    # window instead of once per unit chunk.  The budget is a fixed
+    # sizing constant, not derived from the device's memory.
     _beam_dev_cache = None
     _beam_dev_bytes = 0
     _beam_dev_budget = 1 << 30  # ~1 GB of cached device beams
@@ -870,7 +870,6 @@ class TransitTelescope(Observer, metaclass=abc.ABCMeta):
             # cross the link); arbitrary subclass Python falls back to
             # host evaluation plus a map-sized transfer.  The _all hook
             # evaluates every beamclass of the frequency in ONE dispatch
-            # (dispatch latency dominates on tunnel-attached runtimes)
             # and warms the cache for the sibling classes.
             dev_eval_all = getattr(self, "_beam_device_eval_all", None)
             got = dev_eval_all(feed, fi) if dev_eval_all is not None else None

@@ -8,8 +8,7 @@ projected into the SVD basis (reference: /root/reference/drift/core/
 kltransform.py:258-355).  The foreground covariance spans ~14 decades, so
 *forming* the dense projected matrices and eigendecomposing them in f32
 destroys the small eigenvalues (absolute eigh error ~ n*eps*||N||), and
-near-zero/negative roundoff eigenvalues turn the whitening into inf/NaN —
-the TPU eigh kernel then faults.
+near-zero/negative roundoff eigenvalues turn the whitening into inf/NaN.
 
 This module never forms the ill-conditioned dense covariances.  Instead:
 
@@ -22,15 +21,15 @@ This module never forms the ill-conditioned dense covariances.  Instead:
   by **multi-level Gram deflation** (``gram_bands``): each Gram
   eigendecomposition resolves ~sqrt(eps) of its own top; deflating the
   converged band and re-Gramming the remainder recovers the next decades.
-  All heavy ops are (n x K)(K x n) MXU matmuls plus small eighs;
+  All heavy ops are (n x K)(K x n) matmuls plus small eighs;
 * the noise whitening uses the *identity-plus-low-rank* structure
   ``N = I + A_f A_f^H`` (the radiometer noise projects to exactly the
   identity because the beams are noise-prewhitened):
   ``W = N^(-1/2) = I - Q diag(1 - 1/sqrt(1+s^2)) Q^H`` — no inversion of
   an ill-conditioned matrix anywhere.
 
-Everything is jit/vmap-compatible with static shapes and runs on
-complex-free TPU runtimes via the split-complex ``Z`` representation.
+Everything is jit/vmap-compatible with static shapes and works on
+real (re, im) planes via the split-complex ``Z`` representation.
 """
 
 from __future__ import annotations
@@ -182,12 +181,11 @@ def factor_cl(cl, out_dtype=np.float32, compact_rank=True, rank_rtol=1e-15):
 
 # Lowering for :func:`beam_factor`.  The einsum "fapl,lpfk->falk" has
 # BOTH f and l as diagonal (shared, non-contracted) indices, which XLA
-# lowers as a (f*l)-batched (S, p)(p, K) matmul — p is 1 or 4, so the
-# MXU runs at a tiny fraction of a tile and the stage is pure overhead
-# (measured 511 ms per mb=8 batch at bench scale, ~20% of the product
-# step).  "bcast" lowers it as p broadcast multiply-accumulates over the
-# (F, S, nl, K) output — plain VPU/HBM-bandwidth work.  Env-overridable;
-# the stage profiler A/Bs both and the bench adopts its gated pick.
+# lowers as a (f*l)-batched (S, p)(p, K) matmul — p is 1 or 4, a tiny
+# contraction depth for a matmul unit.  "bcast" lowers it as p broadcast
+# multiply-accumulates over the (F, S, nl, K) output — plain
+# memory-bandwidth work.  Env-overridable; which is faster on a GPU has
+# not been measured.
 _BEAM_FACTOR_IMPL = os.environ.get("DRIFTSCAN_TPU_BEAM_FACTOR_IMPL", "einsum")
 
 
@@ -283,10 +281,8 @@ def beam_factor_compact(bsvd: za.Z, L, l_chunk: int = 64) -> za.Z:
     # often genuinely rank-deficient (band-limit masks), and the f32 Gram
     # formation can push small eigenvalues slightly negative.
     # DRIFTSCAN_TPU_COMPACT_CHOL=f32 drops the factorisation to the
-    # input dtype — escape hatch for runtimes where a big emulated-f64
-    # cholesky inside the (vmapped) product program breaks the remote
-    # compiler (doc/design.md section 6); the shift ladder then settles
-    # one rung higher (~1e-5 relative eigenvalue bias instead of ~1e-8).
+    # input dtype; the shift ladder then settles one rung higher
+    # (~1e-5 relative eigenvalue bias instead of ~1e-8).
     f64 = os.environ.get("DRIFTSCAN_TPU_COMPACT_CHOL", "f64") != "f32"
     cdt = jnp.float64 if f64 else dt
     s_e = za.interleave(za.Z(s_re, s_im)).astype(cdt)
@@ -472,7 +468,7 @@ def _gram_level_scan(x: za.Z, levels: int, band_rel: float, eig_fn) -> GramBands
 def gram_bands(x: za.Z, levels: int = 3, band_rel: float = 3e-2) -> GramBands:
     """Left singular structure of X over ~levels*|log10(band_rel)| decades.
 
-    Each level forms the Gram matrix G = X X^H (one MXU matmul), takes its
+    Each level forms the Gram matrix G = X X^H (one matmul), takes its
     eigendecomposition, keeps the singular values above
     ``band_rel * s_max_level`` (the part a single f32 Gram actually
     resolves: eigh error ~ n*eps*s_max^2, and sqrt halves the exponent),
@@ -588,11 +584,10 @@ _CHOLQR_SHIFT_EPS_MULT = 3000.0
 # noise QR is ~2/3 of the pencil-construction flops — and at bench-class
 # conditioning (cond(N) ~ 3e11) rounds=4 already sits on the f32 Gram
 # noise floor (~1e-3 retained-mode rel vs the dense f64 referee, same as
-# rounds=8; rounds=3 degrades to ~8e-3 — scratch/exact_profile.py gates
-# this on chip).  The default stays at the 1e18-coverage count: the
-# override is a *measured-run* lever (bench adopts its accuracy-gated
-# product_pick), not a library default — a user's pencil may be worse
-# conditioned than anything the gate saw.
+# rounds=8; rounds=3 degrades to ~8e-3).  The default stays at the
+# 1e18-coverage count: the override is a *measured-run* lever, not a
+# library default — a user's pencil may be worse conditioned than
+# anything a gate saw.
 _CHOLQR_ROUNDS = (
     int(os.environ["DRIFTSCAN_TPU_CHOLQR_ROUNDS"])
     if os.environ.get("DRIFTSCAN_TPU_CHOLQR_ROUNDS")
@@ -620,11 +615,11 @@ def chol_qr_r(
 ) -> jnp.ndarray:
     """Upper-triangular R with ``aug_e ~= Q R`` for a tall real matrix.
 
-    XLA's Householder QR is panel-sequential and runs ~60 GFLOP/s on the
-    TPU for the (2(K+n), 2n) pencil augmentations (measured 2 s/m at
-    ndof 1088 — 93% of the whole product step).  This computes the same
-    R by *shifted CholeskyQR* iteration: per round one Gram matmul, one
-    (2n)^2 Cholesky and one triangular solve — all MXU/blocked ops.
+    XLA's Householder QR is panel-sequential, far from matmul rate for
+    the (2(K+n), 2n) pencil augmentations.  This computes the same R by
+    *shifted CholeskyQR* iteration: per round one Gram matmul, one
+    (2n)^2 Cholesky and one triangular solve — all matmul/blocked ops.
+    Whether it beats cuSOLVER's QR on a GPU has not been measured.
 
     Accuracy is Householder-class *on the factor*: the shifted first
     rounds only precondition (aug = G_k (R_{k-1}..R_1) holds to rounding
@@ -677,8 +672,8 @@ def chol_qr_r(
             # G <- G R_k^{-1} via the explicit small inverse: XLA's blocked
             # triangular solve against the tall G materialises a ladder of
             # partial-result temps (one (rows_done, tall) buffer per 128-row
-            # block — ~14 GB at north-star scale), while the (n, n) solve
-            # against I plus one tall MXU matmul holds only ~2 copies of G.
+            # block — ~14 GB at production scale), while the (n, n) solve
+            # against I plus one tall matmul holds only ~2 copies of G.
             # Stable exactly as in _chol_qr_r_split: every solved round is
             # shifted, capping cond(R_k) at ~sqrt(1/shift_rel).
             rinv = jax.scipy.linalg.solve_triangular(
@@ -698,9 +693,8 @@ def chol_qr_r(
 # the interleaved embedding, no tall interleave, and measurably MORE
 # accurate at strong-foreground conditioning: worst retained-mode
 # error vs the dense complex128 referee on the full bench BTM is
-# 1.5e-2 at m=1 vs 4.6e-2 interleaved and 2.4e-1 f32 Householder,
-# scratch/referee_sweep.py / scratch/m1_diag.py — the floor is the f32
-# Gram formation, round-count-independent), "cholqr" (interleaved
+# 1.5e-2 at m=1 vs 4.6e-2 interleaved and 2.4e-1 f32 Householder — the
+# floor is the f32 Gram formation, round-count-independent), "cholqr" (interleaved
 # embedding) or "householder" (XLA's QR) for A/B.  Env-overridable
 # once, before first trace.
 _QR_IMPL = os.environ.get("DRIFTSCAN_TPU_QR_IMPL", "cholqr_split")
@@ -793,19 +787,17 @@ def _noise_r_factor(noise_rows: za.Z) -> jnp.ndarray:
 # the same inverses as the chain of per-round explicit factor inverses
 # R_total^-1 = R_1^-1 .. R_K^-1 — each R_k is shift-capped at
 # cond ~ sqrt(1/shift_rel) by construction, so every factor inversion is
-# stable, and each application is one (n, n)(n, cols) MXU matmul instead
-# of a panel-sequential tall triangular solve (measured ~98 ms/m at bench
-# scale, ~1/3 of the whole product step).  The ill-conditioning of
+# stable, and each application is one (n, n)(n, cols) matmul instead
+# of a panel-sequential tall triangular solve.  The ill-conditioning of
 # R_total stays distributed across the chain exactly as it is inside the
 # CholeskyQR iteration itself (which whitens G through the same
-# inverses).  Env-overridable; bench adopts the on-chip A/B's
-# accuracy-gated pick (doc/whiten_ab.json) like _QR_IMPL.
+# inverses).  Env-overridable; the default is "solve".
 _WHITEN_IMPL = os.environ.get("DRIFTSCAN_TPU_WHITEN_IMPL", "solve")
 
 # Residual-correction steps for the "refined" impl.  One step closes the
 # chain-vs-solve gap to ~5e-4 worst-case at bench conditioning (knife-edge
 # m=1); two put it under the 1e-4 retained-spectrum tier everywhere
-# measured (scratch/whiten_localize.py) at the cost of one more chain
+# measured, at the cost of one more chain
 # application + triangular matmul per whitening.
 _WHITEN_REFINE_STEPS = int(os.environ.get("DRIFTSCAN_TPU_WHITEN_REFINE", "2"))
 
@@ -852,8 +844,7 @@ def _compose_factor_inv(invs) -> za.Z:
     K-matmul chain.  The composed M carries the same normwise error
     bound as the chain (each factor is shift-capped), and the
     componentwise grading both lack is restored by the refinement steps
-    against R_total, so "refined" accuracy is unchanged (re-validated:
-    scratch/whiten_localize.py).
+    against R_total, so "refined" accuracy is unchanged.
     """
     m = invs[0]
     for inv in invs[1:]:
@@ -872,7 +863,7 @@ def _whiten_apply_refined(
     (residual contraction ~ ||I - M R^H|| per step) rather than to each
     path's independent rounding — which keeps knife-edge modes of the
     downstream banded deflation from rerouting.  Cost per step: one
-    triangular matmul plus one M matmul (both MXU work).
+    triangular matmul plus one M matmul.
     """
     if adjoint:
         apply = lambda x: za.einsum("...ji,...jk->...ik", m_inv.conj(), x)
@@ -912,11 +903,9 @@ def _make_whitener(noise_rows: za.Z):
 #
 # The retained KL modes are the eigenvalues of H = Y Y^H above an
 # *absolute* cut (the S/N threshold, reference kltransform.py:310-355).
-# A full eigendecomposition computes all n of them; XLA's QDWH-eig runs
-# at <1% of matmul peak on the TPU (measured ~0.5 s per 2176^2 f32
-# matrix), and post-CholeskyQR it is ~85% of the product step.  The
-# functions below extract exactly the above-cut band with *matmuls
-# only*: a scaled Chebyshev filter that suppresses [0, b] (b below the
+# A full eigendecomposition computes all n of them, and the eigh is the
+# costliest stage of the product step.  The functions below extract
+# exactly the above-cut band with *matmuls only*: a scaled Chebyshev filter that suppresses [0, b] (b below the
 # cut) drives a k-column subspace iteration, and one small (k x k)
 # float64 Rayleigh-Ritz recovers the eigenvalues to f64 formation
 # accuracy.  Basis error from the f32 iteration enters the Ritz values
@@ -929,15 +918,13 @@ def _make_whitener(noise_rows: za.Z):
 # applications and the in-loop CholeskyQR): these only shape the
 # iteration basis — the f64 Rayleigh-Ritz recovers eigenvalues from the
 # span, and the spectral certificate checks completeness — so they can
-# run below the library's "highest" default.  At "high" (bf16x3,
-# eps ~ 5e-7) the locked-direction angle floors at ~5e-7 * (lam/lock)^2
-# ~ 5e-3 with the 2-decade levels, i.e. Ritz error ~ 2.5e-5 relative —
-# inside the 1e-4 tier — at half the MXU passes of bf16x6.  The
-# *deflation* matmuls are excluded: their error leaks eps^2 * lam_max
-# of spurious weight past the cut, and bf16x3's eps^2 ~ 2.5e-13 is
-# marginal at production conditioning (lam/cut ~ 1e12).  None inherits
-# the global default; module state (read at trace time) rather than an
-# argument so the on-chip A/B can flip it like _QR_IMPL.
+# run below the library's "highest" default.  A tier with eps ~ 5e-7
+# floors the locked-direction angle at ~5e-7 * (lam/lock)^2 ~ 5e-3 with
+# the 2-decade levels, i.e. Ritz error ~ 2.5e-5 relative — inside the
+# 1e-4 tier.  The *deflation* matmuls are excluded: their error leaks
+# eps^2 * lam_max of spurious weight past the cut, which is marginal at
+# production conditioning (lam/cut ~ 1e12).  None inherits the global
+# default; module state (read at trace time) like _QR_IMPL.
 _FILTER_PRECISION = os.environ.get("DRIFTSCAN_TPU_TOPBAND_FILTER_PRECISION") or None
 
 
@@ -945,8 +932,7 @@ def _chol_qr_zblock(v: za.Z, rounds: int = 2, precision=None) -> za.Z:
     """Orthonormalise a complex column block, matmul-only, gather-free.
 
     Interleaving the whole (n, k) block would cost two ~O(n*k) device
-    gathers per call (~2 GB/s effective on this TPU — see design.md
-    5b7), so only the *small* (k, k) Cholesky factor goes through the
+    gathers per call, so only the *small* (k, k) Cholesky factor goes through the
     interleaved embedding: per round one split Gram matmul, a shifted
     complex Cholesky (zarray.cholesky — interleaves k x k only), an
     explicit small triangular inverse R^-1 = (L^H)^-1 (stable here:
@@ -1621,11 +1607,9 @@ def kl_solve(
         of poorly-converged directions pollutes later levels.
     solve_dtype
         dtype of the Gram/eigh stages.  float64 (the default) reaches
-        eps ~ 1e-15 even on TPU runtimes that emulate it as a float32
-        pair — and there eigh costs the *same* as f32 (measured) — so 3
-        foreground + 2 signal levels at band_rel 1e-3 cover the
-        foreground's 14 decades with ~1e-6 in-band accuracy using 5
-        eighs per m instead of 13.  (An all-f32 configuration needs
+        eps ~ 1e-15, so 3 foreground + 2 signal levels at band_rel 1e-3
+        cover the foreground's 14 decades with ~1e-6 in-band accuracy
+        using 5 eighs per m instead of 13.  (An all-f32 configuration needs
         (8, 5, 1e-1) for the reference's 1e-4 KL tier.)
 
     Returns

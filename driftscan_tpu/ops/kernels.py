@@ -1,9 +1,9 @@
 """Beam/fringe pixel kernels — the `_fast_tools` replacement.
 
 The reference implements these hot loops in Cython+OpenMP
-(/root/reference/drift/util/_fast_tools.pyx).  On TPU they are fused
+(/root/reference/drift/util/_fast_tools.pyx).  Here they are fused
 elementwise pipelines over the pixel axis plus two scalar reductions, which
-XLA fuses into a handful of VPU passes; all functions are jit-compatible
+XLA fuses into a handful of memory passes; all functions are jit-compatible
 and batch over leading axes.
 """
 
@@ -62,7 +62,8 @@ def fringe(angpos_cart, zenith, uv):
     uhat, vhat = phat, -that
     uv = jnp.asarray(uv)
     uv3 = uv[..., 0:1] * uhat + uv[..., 1:2] * vhat  # (..., 3)
-    # Match the pixel-grid precision so TPU runs stay in complex64.
+    # Match the pixel-grid precision so single-precision runs stay in
+    # complex64.
     uv3 = uv3.astype(angpos_cart.dtype)
     du = jnp.einsum("...k,pk->...p", uv3, angpos_cart)
     phase = (2 * jnp.pi * du).astype(angpos_cart.dtype)
@@ -222,7 +223,7 @@ def stokes_visibility_map_split(beam_i, beam_j, uv, zenith, angpos_cart, horizon
 
 
 # ------------------------------------------------------------------
-# Split-complex variants (for complex-free TPU backends; see backend.py)
+# Split-complex variants (DRIFTSCAN_TPU_SPLIT_COMPLEX; see backend.py)
 # ------------------------------------------------------------------
 
 

@@ -297,8 +297,8 @@ def triple_svd_batched(bfr, npol: int, nl: int, polsvcut: float = 1e-4):
 def triple_svd_split_batched(bfr_re, bfr_im, npol: int, nl: int, polsvcut: float = 1e-4):
     """Split-complex triple SVD (see :func:`triple_svd_batched`).
 
-    Uses Gram-eigendecomposition SVDs (ops.zarray.svd_eigh) so it runs on
-    complex-free TPU backends.  Singular values below ~sqrt(jitter) of the
+    Uses Gram-eigendecomposition SVDs (ops.zarray.svd_eigh) on real
+    (re, im) planes.  Singular values below ~sqrt(jitter) of the
     maximum (~1e-6 relative) are noise of the Gram method, so the image
     cuts are floored at 1e-5 relative — modes that faint carry 1e-10 of
     the peak sensitivity in power and are discarded by the svcut (default

@@ -1,13 +1,12 @@
-"""Split-complex arithmetic: complex linear algebra on real-only hardware.
+"""Split-complex arithmetic: complex linear algebra on real planes.
 
-The m-mode pipeline is complex-valued end to end, but TPU accelerators
-execute complex arithmetic poorly or (on some runtimes) not at all, and
-XLA's complex SVD is not the fast path anywhere.  This module implements
-the complex operations the pipeline needs on an explicit (real, imag)
-representation:
+The m-mode pipeline is complex-valued end to end.  The factored KL
+engine (ops.fpencil) and the ``DRIFTSCAN_TPU_SPLIT_COMPLEX`` paths keep
+it on an explicit (real, imag) representation, and this module
+implements the complex operations they need:
 
 * ``Z`` — a pytree pair of real arrays;
-* complex contractions as 4 real MXU contractions;
+* complex contractions as 4 real contractions;
 * Hermitian eigendecomposition via the real-symmetric embedding
   ``[[A, -B], [B, A]]`` (eigenvalues double up; even-indexed eigenvectors
   re-assemble into complex ones);
@@ -124,10 +123,8 @@ def embed_herm(h: Z) -> jnp.ndarray:
 # take with a fixed permutation) or "stack" (stack/reshape row mixes +
 # two transposes for the column mix).  The gather form was the round-2
 # workaround for a 32x HLO-temp blowup from trailing-2 intermediates;
-# the stack form only ever creates a *sublane*-2 intermediate (4x pad
-# transient) and no gathers, which matters on this TPU where gathers
-# run at ~2 GB/s against ~800 GB/s streaming.  Env-selectable for the
-# on-chip A/B; read once, before first trace.
+# the stack form only ever creates a *sublane*-2 intermediate and no
+# gathers.  Env-selectable; read once, before first trace.
 _INTERLEAVE_IMPL = os.environ.get("DRIFTSCAN_TPU_INTERLEAVE", "gather")
 
 
@@ -160,10 +157,9 @@ def interleave(m: Z) -> jnp.ndarray:
         )
         return jnp.swapaxes(allt, -1, -2)
 
-    # Assemble with concatenate + gather only: any intermediate with a
-    # *trailing* dimension of 2 gets padded to the TPU's (8, 128) tile —
-    # measured 32x memory expansion (a 440 MB embedding ballooned to
-    # 13.7 GB of HLO temp at production scale).
+    # Assemble with concatenate + gather only: an intermediate with a
+    # *trailing* dimension of 2 can be padded many-fold by a tiled
+    # layout (a 440 MB embedding once took 13.7 GB of HLO temp).
     def rowmix(x, y):
         # (..., 2p, q) with rows x0, y0, x1, y1, ...
         both = jnp.concatenate([x, y], axis=-2)
@@ -294,10 +290,9 @@ def whiten_eigh(s: Z, n: Z, floor: float = 0.0):
     dmin = d[..., 0]
     # Floor at the eigh resolution (~eps * dmax) even when no explicit
     # floor is given: roundoff makes the smallest eigenvalues of an
-    # ill-conditioned N come out <= 0, and 1/sqrt of those is inf -> NaN
-    # (on TPU runtimes this faults the downstream eigh kernel).  The
-    # clamped values are numerically meaningless anyway.  All constants
-    # stay inside the f32 exponent range (TPU f64 is a float32 pair).
+    # ill-conditioned N come out <= 0, and 1/sqrt of those is inf -> NaN.
+    # The clamped values are numerically meaningless anyway.  All
+    # constants stay inside the f32 exponent range.
     eps = jnp.finfo(d.dtype).eps
     dfloor = jnp.maximum(floor, eps) * dmax[..., None] + 1e-30
     dclamp = jnp.maximum(d, dfloor)

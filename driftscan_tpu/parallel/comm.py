@@ -1,7 +1,7 @@
 """Process-level coordination verbs (equivalent of ``caput.mpiutil``).
 
 The reference drives a cluster of MPI ranks; driftscan_tpu drives one
-Python process per host, each controlling its local TPU devices, following
+Python process per host, each controlling its local GPUs, following
 the single-controller JAX model.  These verbs give the pipeline code the
 same nine primitives the reference uses (SURVEY.md section 2.4) with the
 same semantics:

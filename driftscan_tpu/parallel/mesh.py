@@ -4,7 +4,7 @@ The primary scaling axis of the m-mode pipeline is the m-mode (and the
 freq x baseline) axis — embarrassingly parallel per unit (SURVEY.md
 section 2.3).  We therefore use a 1-D device mesh with axis name ``"m"``
 and shard batched arrays along their leading (batch) axis.  XLA inserts
-the ICI collectives for any resharding (the reference's MPI transpose,
+the collectives for any resharding (the reference's MPI transpose,
 /root/reference/drift/core/beamtransfer.py:632, becomes an output-sharding
 change under pjit).
 """
@@ -94,8 +94,8 @@ def transpose_sharded(x, mesh: Optional[Mesh] = None):
     a (R/P, ..., C/P) tile with every peer — the bandwidth-optimal
     equivalent of the reference's MPI transpose
     (caput.mpiutil.transpose_blocks at
-    /root/reference/drift/core/beamtransfer.py:628-638), riding ICI as a
-    single ``lax.all_to_all``.
+    /root/reference/drift/core/beamtransfer.py:628-638), as a single
+    ``lax.all_to_all``.
 
     R and C must both divide the mesh size (pad + trim at the call site).
     """

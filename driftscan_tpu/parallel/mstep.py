@@ -1,6 +1,6 @@
 """The batched, mesh-sharded per-m product step.
 
-This is the TPU performance path for the pipeline core: one jitted
+This is the device performance path for the pipeline core: one jitted
 program that takes a *batch of m-modes* of beam transfer matrices and
 produces the SVD compression and the KL filter for every one of them —
 the work the reference distributes as a per-m loop over MPI ranks
@@ -8,13 +8,13 @@ the work the reference distributes as a per-m loop over MPI ranks
 /root/reference/drift/core/kltransform.py:310-355).
 
 Shapes are fully padded (masks instead of data-dependent rank cuts), so
-the batch vmaps on one chip and shards over a ``Mesh`` along the m axis
-with pjit — XLA inserts any ICI collectives.
+the batch vmaps on one device and shards over a ``Mesh`` along the m
+axis with pjit — XLA inserts any collectives.
 
 The KL stage works on *factored* covariances (ops.fpencil): the sky
 covariance blocks are Cholesky-factored once on the host
 (:func:`prepare_cl_factors`) and every m-mode projects the factor, never
-the dense ill-conditioned matrix — the key to f32/TPU numerical safety
+the dense ill-conditioned matrix — the key to f32 numerical safety
 (see ops/fpencil.py module docstring).
 """
 
@@ -375,12 +375,11 @@ def band_factor_table(clbands, out_dtype=np.float32, l_chunk=64,
 
 # Matmul precision of the Fisher contraction einsums.  The Fisher tier
 # is rel 3e-2 (BASELINE.md) and the contraction is a plain quadratic
-# form — no deflation, no cancellation across decades — so bf16x3
-# ("high", eps ~ 5e-7 per pass with f32 accumulation across l-chunks)
-# is far inside the tier at half the MXU passes of the library's
-# "highest" default.  None inherits the global default; module state
-# (read at trace time) so an on-chip A/B can flip it like the topband
-# filter switch (fpencil._FILTER_PRECISION).
+# form — no deflation, no cancellation across decades — so a tier with
+# eps ~ 5e-7 per pass (f32 accumulation across l-chunks) would sit far
+# inside it.  None inherits the global default ("highest"); module state
+# read at trace time, like the topband filter switch
+# (fpencil._FILTER_PRECISION).
 _FISHER_PRECISION = os.environ.get("DRIFTSCAN_TPU_FISHER_PRECISION") or None
 
 

@@ -2,10 +2,9 @@
 
 The file-based pipeline stages communicate through HDF5 (the reference's
 contract), which forces a device->host fetch of the full BTM and a
-host->device re-upload for the SVD/KL stage.  On a remote-attached TPU
-the link is orders of magnitude slower than HBM, so for in-memory
-workflows (benchmarking, interactive analysis, simulation) this module
-keeps everything resident:
+host->device re-upload for the SVD/KL stage.  For in-memory workflows
+(benchmarking, interactive analysis, simulation) this module keeps
+everything on the device instead:
 
 * :func:`btm_resident` computes the beam transfer matrices bucket-by-
   bucket (per-nside, like ``TransitTelescope.transfer_matrices``) and
@@ -39,7 +38,7 @@ def _tables_set(pr, pi, nr, ni, sel, p_re, p_im, n_re, n_im, pm):
     The tables are donated: the eager ``tab.at[...].set`` this replaces
     allocated a full second copy of each multi-GB (l, m) table per
     chunk, which at production band limits transiently doubled the
-    tables' HBM footprint and OOMed the windowed north-star runs.
+    tables' device-memory footprint.
 
     ``sel`` is padded to the chunk's power-of-two batch with the
     out-of-bounds index ``nu`` — scatter drops those rows, so the padded
@@ -69,7 +68,7 @@ def btm_resident(tel, bl_indices, f_indices, m_range=None):
     ``m_range=(m0, m1)`` computes and stores only that m-window, in the
     *uniform* layout: both planes get width m1 - m0 with column
     j <-> m = m0 + j (the m = 0 negative column is zero).  This is the
-    HBM streaming axis: the full (l, m) tables scale as nu * npol *
+    device-memory streaming axis: the full (l, m) tables scale as nu * npol *
     nl * nm and exceed device memory at production band limits (66 GB
     at 256 freqs x lmax 1006 polarised), while each window's share of
     the SHT costs only its fraction of the full transform.
@@ -113,9 +112,9 @@ def btm_resident(tel, bl_indices, f_indices, m_range=None):
             boff += take
             # Quantise the chunk band limit to a power-of-two fraction of
             # the telescope lmax: every distinct sub_lmax is a separate
-            # remote-AOT compile (minutes each) *and*, in windowed runs,
-            # a separate ~GB device Legendre table — quantisation caps
-            # both at log2(lside) variants.  The extra l rows are exact
+            # compile *and*, in windowed runs, a separate ~GB device
+            # Legendre table — quantisation caps both at log2(lside)
+            # variants.  The extra l rows are exact
             # zeros past each unit's own band-limit mask below.
             sub_lmax = min(lside, _quant_frac(int(lmax_arr[sel].max()), lside))
 
@@ -390,8 +389,8 @@ def _spectrum_batch(
     never reads.
 
     (One jit per m-batch rather than a lax.scan over all batches: the
-    fully fused whole-spectrum program crashes this TPU runtime's worker,
-    and per-batch dispatch costs only ~25 ms each.)
+    host sees each batch's spectrum, which the adaptive depth and the
+    Fisher mode-slice escalation decide on.)
     """
     res = _resident_batch.__wrapped__(
         pos_re,
@@ -550,11 +549,10 @@ _FISHER_LCHUNK = int(os.environ.get("DRIFTSCAN_TPU_FISHER_LCHUNK", "64"))
 # Starting subspace width of the top-band engine, as a fraction of the
 # pencil dimension (k0 = n / frac).  The certificate escalation doubles
 # k on incompleteness, but it cannot see *value* error inside a complete
-# basis: the round-3 on-chip A/B failed with boundary-mode values off by
-# 0.24 rel at k = n/8 while the certificate passed, and the forensic
-# (doc/topband_forensic.json) shows k = n/4 brings paired values to
-# ~5e-7 of the exact engine at f64 Ritz.  Flip to 4 only on a passing
-# on-chip record (doc/topband_forensic_chip.json).
+# basis: at k = n/8 boundary-mode values have been seen 0.24 rel off
+# while the certificate passed, and k = n/4 brings paired values to
+# ~5e-7 of the exact engine at f64 Ritz.  The engine is off by default
+# (``topband=False``) and has not been measured on a GPU.
 _TB_START_FRAC = int(os.environ.get("DRIFTSCAN_TPU_TB_START_FRAC", "8"))
 
 
@@ -590,14 +588,14 @@ def _run_topband(run, mv, extra, nw, lsd, lfd, n_chunk, kl_cut, exact_levels):
     return np.asarray(ev), nmo, fish
 
 
-def _auto_mbatch(tel, hbm_budget_gb=4.0):
+def _auto_mbatch(tel, budget_gb=4.0):
     """m-batch size bounding the product step's working set.
 
-    Dominant per-m buffers (all f32 on split backends): the interleaved
-    QR augmentation (2(K+n) x 2n), the whitened factor (2n x 2K) and a
-    few (2n)^2 Gram/eigh temporaries; a ~3x allowance covers XLA's
-    fusion copies.  Measured: mbatch=8 at ndof=1088 exceeds HBM by
-    ~0.8 GB, and this estimate picks 4 there.
+    Dominant per-m buffers (f32 in single-precision runs): the
+    interleaved QR augmentation (2(K+n) x 2n), the whitened factor
+    (2n x 2K) and a few (2n)^2 Gram/eigh temporaries; a ~3x allowance
+    covers XLA's fusion copies.  ``budget_gb`` is a fixed sizing
+    constant, not derived from the device's memory.
     """
     nl = tel.lmax + 1
     n = tel.nfreq * min(nl, 2 * tel.npairs) * tel.num_pol_sky
@@ -605,20 +603,20 @@ def _auto_mbatch(tel, hbm_budget_gb=4.0):
     # K_aug=K: a tel-only estimate cannot see rank-compacted factors, so
     # it sizes the noise-side QR augmentation at the uncompacted width
     # (conservative); product_all_resident uses the true widths instead.
-    return _auto_mbatch_n(n, K, hbm_budget_gb=hbm_budget_gb, cap=8, K_aug=K)
+    return _auto_mbatch_n(n, K, budget_gb=budget_gb, cap=8, K_aug=K)
 
 
 # Minimum dimension-reduction factor for a compacted chunk shape to be
-# worth its own compiled variant (remote compiles cost minutes).
+# worth its own compiled variant.
 _BUCKET_MIN_SAVING = 2
 
 
 def _quant_frac(x: int, full: int) -> int:
     """Smallest power-of-two *fraction* of ``full`` that is >= x.
 
-    Remote-AOT compiles cost minutes per distinct shape, so bucket sizes
-    are quantised to {full, ~full/2, ~full/4, ...} — at most log2(full)
-    compiled variants per axis, not full/gran.
+    Every distinct shape is a compile, so bucket sizes are quantised to
+    {full, ~full/2, ~full/4, ...} — at most log2(full) compiled variants
+    per axis, not full/gran.
     """
     x = max(int(x), 1)
     q = full
@@ -659,7 +657,7 @@ def _analytic_dof_bound(tel, nm, m_lo=0):
     return np.minimum(np.minimum(pair_rows, lrows), S).sum(axis=1)  # (nm,)
 
 
-def _auto_mbatch_n(n: int, K: int, hbm_budget_gb=4.0, cap: int = 16, K_aug=None):
+def _auto_mbatch_n(n: int, K: int, budget_gb=4.0, cap: int = 16, K_aug=None):
     """m-batch size for a pencil of dimension ``n`` (see _auto_mbatch).
 
     ``K`` sizes the whitened signal factor; ``K_aug`` (default ``K``)
@@ -675,7 +673,7 @@ def _auto_mbatch_n(n: int, K: int, hbm_budget_gb=4.0, cap: int = 16, K_aug=None)
     n2, k2 = 2 * n, 2 * K
     k2a = 2 * (K if K_aug is None else K_aug)
     per_m = ((k2a + n2) * n2 + n2 * k2 + 6 * n2 * n2) * 4.0 * 3.0
-    budget = hbm_budget_gb * 2**30
+    budget = budget_gb * 2**30
     mb = int(max(1, min(cap, budget // max(per_m, 1.0))))
     return 1 << (mb.bit_length() - 1)  # power of two
 
@@ -692,8 +690,8 @@ def product_all_resident(
     (nm, nfreq)) as host numpy.
 
     With a multi-device ``mesh`` the m batch of each dispatch is sharded
-    over the mesh axis (the BTM tables are replicated) so every chip
-    solves its own m-modes — the multi-chip scaling axis of the pipeline
+    over the mesh axis (the BTM tables are replicated) so every device
+    solves its own m-modes — the multi-device scaling axis of the pipeline
     (SURVEY.md section 2.3).  Scale ``mbatch`` with the device count.
 
     ``sig_levels=None`` selects the depth *adaptively per batch*: each
@@ -720,8 +718,8 @@ def product_all_resident(
     is the static-shape equivalent.
 
     ``m_range=(m0, m1)`` processes only that m-window from tables built
-    with ``btm_resident(..., m_range=...)`` (uniform layout) — the HBM
-    streaming axis for band limits whose full tables exceed device
+    with ``btm_resident(..., m_range=...)`` (uniform layout) — the
+    device-memory streaming axis for band limits whose full tables exceed device
     memory.  Returns spectra for m in [m0, m1).
 
     ``topband=True`` replaces the whitened-signal eigendecomposition —

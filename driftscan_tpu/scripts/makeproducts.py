@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """drift-makeproducts: generate analysis products from a YAML config.
 
-Functional parity with /root/reference/drift/scripts/makeproducts.py
-(`run`, `interactive`, `queue`), with the `queue` command emitting
-TPU-pod launch scripts (one process per host) instead of PBS/Slurm
-mpirun lines — plus the original PBS/Slurm templates for CPU clusters.
+Functional parity with the reference's drift/scripts/makeproducts.py
+(`run`, `interactive`, `queue`); `queue` writes a PBS or Slurm job
+script.  Each job runs one process per node holding all of that node's
+GPUs (or binds one GPU per rank); a JAX process reserves most of a
+card's memory, so two processes never share one card.
 """
 
 import logging
@@ -15,7 +16,7 @@ import click
 
 products = None
 
-_QUEUE_SYSTEMS = ["tpu", "pbs", "slurm"]
+_QUEUE_SYSTEMS = ["pbs", "slurm"]
 
 
 @click.group()
@@ -125,17 +126,6 @@ def interactive(configfile):
 
 # --- job script templates ---
 
-tpu_script = """#!/bin/bash
-# Launch one controller process per TPU host in the pod slice.
-# Set TPU_NAME/ZONE/PROJECT for your deployment.
-set -e
-cd %(workdir)s
-gcloud compute tpus tpu-vm ssh "$TPU_NAME" --zone="$ZONE" --project="$PROJECT" \\
-  --worker=all --command="cd %(workdir)s && \\
-    python -m driftscan_tpu.scripts.makeproducts run %(configpath)s" \\
-  &> %(logpath)s
-"""
-
 pbs_script = """#!/bin/bash
 #PBS -l nodes=%(nodes)i:ppn=%(ppn)i
 #PBS -q %(queue)s
@@ -167,7 +157,7 @@ export OMP_NUM_THREADS=$SLURM_CPUS_PER_TASK
 srun python -m driftscan_tpu.scripts.makeproducts run %(configpath)s &> %(logpath)s
 """
 
-script_templates = {"tpu": tpu_script, "pbs": pbs_script, "slurm": slurm_script}
+script_templates = {"pbs": pbs_script, "slurm": slurm_script}
 
 
 @cli.command()
@@ -200,7 +190,7 @@ def queue(configfile, submit):
     if not os.path.isabs(outdir):
         raise Exception("Output directory path must be absolute.")
 
-    queue_sys = conf.get("queue_sys", "tpu")
+    queue_sys = conf.get("queue_sys", "slurm")
     if queue_sys not in script_templates and "script_template" not in conf:
         raise Exception("Need to specify submit script for unknown scheduler.")
 
@@ -238,7 +228,7 @@ def queue(configfile, submit):
     with open(scriptname, "w") as f:
         f.write(script)
 
-    submit_commands = {"tpu": "bash", "pbs": "qsub", "slurm": "sbatch"}
+    submit_commands = {"pbs": "qsub", "slurm": "sbatch"}
     submit_command = conf.get(
         "submit_command", submit_commands.get(queue_sys, "bash")
     )

@@ -11,12 +11,6 @@ random band-limited sky, decompose it into m-modes and make a map.
 
 import os
 
-# The example is an API walkthrough: run it on the host CPU backend
-# (production TPU runs go through the batched product step instead).
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import h5py
 import numpy as np
 

@@ -3,7 +3,11 @@
 This mirrors how the reference tests multi-node behaviour without a
 cluster (``mpirun -np 2 --oversubscribe``,
 /root/reference/tests/test_functional.py:70-76): we substitute a virtual
-8-device CPU mesh for real TPU chips.  Must run before jax initialises.
+8-device CPU mesh for real accelerators.  Must run before jax initialises.
+
+``-m gpu`` selects the card-only checks (tests/test_on_card.py) and
+leaves JAX on its default backend for them; every other run is pinned
+to the CPU.
 """
 
 import os
@@ -15,4 +19,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+
+def pytest_configure(config):
+    if config.getoption("markexpr", "") != "gpu":
+        jax.config.update("jax_platforms", "cpu")

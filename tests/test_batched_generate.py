@@ -88,7 +88,7 @@ def test_kl_evecs_diagonalise(pair):
     evals, evecs = kl.modes_m(mi)
     nside = bt.ndof(mi)
     S, N = kl.sn_covariance(mi)
-    # split mode computes at f32 device precision (TPU policy): the
+    # split mode computes at f32 device precision: the
     # N-orthonormality floor is then ~1e-2; native f64 is ~1e-7
     tol = 1e-2 if backend.split_complex() else 1e-7
     np.testing.assert_allclose(
@@ -160,7 +160,7 @@ psfisher:
         import driftscan_tpu.backend as backend
 
         fast = pk.band_covariance_projection(g, ps.clarray)
-        # split mode computes at f32 device precision (TPU policy)
+        # split mode computes at f32 device precision
         rtol, atol = (1e-3, 1e-5) if backend.split_complex() else (1e-8, 1e-10)
         for bi in range(ps.nbands):
             slow = ps.makeproj(mi, bi)

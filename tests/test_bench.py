@@ -1,7 +1,8 @@
 """bench.py must run end-to-end and print its one-line JSON contract.
 
-The driver executes ``python bench.py`` on the real accelerator; this
-guards the harness itself (small scale, CPU backend, subprocess)."""
+This guards the harness itself (small scale, CPU backend, subprocess);
+the numbers it prints here are CPU numbers and name the CPU as their
+device."""
 
 import json
 import os
@@ -11,9 +12,10 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_bench_small_scale_json_contract():
+def test_bench_small_scale_json_contract(tmp_path):
     env = os.environ.copy()
     env["BENCH_SCALE"] = "small"
+    env["BENCH_RECORD_PATH"] = str(tmp_path / "bench_record.json")
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
 
     code = (
@@ -32,145 +34,15 @@ def test_bench_small_scale_json_contract():
 
     line = res.stdout.strip().splitlines()[-1]
     out = json.loads(line)
-    assert set(out) >= {"metric", "value", "unit", "vs_baseline"}
+    assert set(out) >= {"metric", "value", "unit", "detail"}
+    assert "vs_baseline" not in out
     assert out["value"] > 0
     assert out["unit"] == "m-modes/s"
-    assert "t_btm_s" in out["detail"] and "t_product_s" in out["detail"]
-
-
-def test_engine_defaults_resolution(tmp_path, monkeypatch):
-    """Env pins the engine; otherwise the A/B decision record decides."""
-    import bench
-    from driftscan_tpu.ops import fpencil
-
-    from driftscan_tpu.ops import sht
-
-    rec = tmp_path / "topband_ab.json"
-    monkeypatch.setattr(bench, "_AB_DECISION", str(rec))
-    # isolate from any real doc/sht_ab.json and restore module state
-    monkeypatch.setattr(bench, "_SHT_AB_DECISION", str(tmp_path / "sht_ab.json"))
-    monkeypatch.setattr(sht, "_SHT_PRECISION", sht._SHT_PRECISION)
-    monkeypatch.delenv("BENCH_TOPBAND", raising=False)
-    monkeypatch.delenv("DRIFTSCAN_TPU_TOPBAND_FILTER_PRECISION", raising=False)
-    monkeypatch.delenv("DRIFTSCAN_TPU_SHT_PRECISION", raising=False)
-
-    # no record, no env -> exact engine
-    bench._PHASES.pop("engine", None)
-    assert bench._engine_defaults()["topband"] is False
-
-    # record says topband wins and picks a filter precision
-    rec.write_text(
-        json.dumps({"topband_wins": True, "filter_precision_pick": "high"})
-    )
-    old_fp = fpencil._FILTER_PRECISION
-    try:
-        bench._PHASES.pop("engine", None)
-        out = bench._engine_defaults()
-        assert out["topband"] is True and out["source"] == "ab_record"
-        assert fpencil._FILTER_PRECISION == "high"
-    finally:
-        fpencil._FILTER_PRECISION = old_fp
-
-    # env overrides the record
-    monkeypatch.setenv("BENCH_TOPBAND", "0")
-    bench._PHASES.pop("engine", None)
-    out = bench._engine_defaults()
-    assert out["topband"] is False and out["source"] == "env"
-
-    # env-pinned filter precision is never clobbered by the record
-    monkeypatch.setenv("DRIFTSCAN_TPU_TOPBAND_FILTER_PRECISION", "default")
-    old_fp = fpencil._FILTER_PRECISION
-    try:
-        bench._PHASES.pop("engine", None)
-        out = bench._engine_defaults()
-        assert "filter_precision" not in out
-        assert fpencil._FILTER_PRECISION == old_fp
-    finally:
-        fpencil._FILTER_PRECISION = old_fp
-
-
-def test_resolve_sht_precision(tmp_path, monkeypatch):
-    """Record adoption is env-gated and sets the sht module state."""
-    import bench
-    from driftscan_tpu.ops import sht
-
-    monkeypatch.setattr(bench, "_SHT_AB_DECISION", str(tmp_path / "sht_ab.json"))
-    monkeypatch.setattr(sht, "_SHT_PRECISION", None)
-    monkeypatch.delenv("DRIFTSCAN_TPU_SHT_PRECISION", raising=False)
-
-    assert bench.resolve_sht_precision() is None  # no record
-
-    (tmp_path / "sht_ab.json").write_text(
-        json.dumps({"sht_precision_pick": "high"})
-    )
-    assert bench.resolve_sht_precision() == "high"
-    assert sht._SHT_PRECISION == "high"
-
-    # env pins the precision: the record is not consulted
-    monkeypatch.setattr(sht, "_SHT_PRECISION", "default")
-    monkeypatch.setenv("DRIFTSCAN_TPU_SHT_PRECISION", "default")
-    assert bench.resolve_sht_precision() == "default"
-
-
-def test_mbatch_default_resolution(tmp_path, monkeypatch):
-    """Env pins the headline m-batch; otherwise the records decide
-    (pinned-depth profiler pick beats the adaptive sweep pick)."""
-    import bench
-
-    rec = tmp_path / "mbatch_ab.json"
-    prof = tmp_path / "exact_profile.json"
-    monkeypatch.setattr(bench, "_MBATCH_AB_DECISION", str(rec))
-    monkeypatch.setattr(bench, "_EXACT_PROFILE_DECISION", str(prof))
-    monkeypatch.delenv("BENCH_MBATCH", raising=False)
-
-    # no record, no env -> auto
-    assert bench._mbatch_default() == (None, None, None)
-
-    rec.write_text(json.dumps({"mbatch_pick": 32}))
-    assert bench._mbatch_default() == (32, None, None)
-
-    # pinned-depth pick wins over the adaptive sweep's
-    prof.write_text(json.dumps({"mbatch_pinned_pick": 64}))
-    assert bench._mbatch_default() == (64, 2, None)
-
-    # a measured combo pick wins over everything, sig_levels 0 maps to
-    # the adaptive depth (None) and cholqr_rounds 0 to library default
-    prof.write_text(json.dumps({
-        "mbatch_pinned_pick": 64,
-        "product_pick": {"mbatch": 128, "sig_levels": 0, "cholqr_rounds": 4},
-    }))
-    assert bench._mbatch_default() == (128, None, 4)
-
-    # a malformed combo (missing mbatch key) falls through to the
-    # pinned pick instead of crashing the bench at startup
-    prof.write_text(json.dumps({
-        "mbatch_pinned_pick": 64,
-        "product_pick": {"sig_levels": 1},
-    }))
-    assert bench._mbatch_default() == (64, 2, None)
-
-    # a sweep with no accuracy-passing setting records null -> auto
-    prof.write_text(json.dumps({"mbatch_pinned_pick": None}))
-    rec.write_text(json.dumps({"mbatch_pick": None}))
-    assert bench._mbatch_default() == (None, None, None)
-
-    monkeypatch.setenv("BENCH_MBATCH", "16")
-    assert bench._mbatch_default() == (16, None, None)
-
-
-def test_product_precision_resolution(tmp_path, monkeypatch):
-    """Env pins the product matmul tier; otherwise the profiler's gated
-    pick; empty env string disables adoption."""
-    import bench
-
-    prof = tmp_path / "exact_profile.json"
-    monkeypatch.setattr(bench, "_EXACT_PROFILE_DECISION", str(prof))
-    monkeypatch.delenv("BENCH_EXACT_PRECISION", raising=False)
-
-    assert bench._product_precision_default() is None
-    prof.write_text(json.dumps({"exact_prec_pick": "default"}))
-    assert bench._product_precision_default() == "default"
-    monkeypatch.setenv("BENCH_EXACT_PRECISION", "")
-    assert bench._product_precision_default() is None
-    monkeypatch.setenv("BENCH_EXACT_PRECISION", "high")
-    assert bench._product_precision_default() == "high"
+    detail = out["detail"]
+    assert "t_btm_s" in detail and "t_product_s" in detail
+    # every record names the device it ran on
+    assert detail["platform"] == "cpu"
+    assert detail["kind"] and detail["count"] >= 1
+    assert "product_mfu_pct" not in detail
+    with open(tmp_path / "bench_record.json") as f:
+        assert json.load(f) == out

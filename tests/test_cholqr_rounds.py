@@ -1,15 +1,14 @@
 """CholQR round-count override: accuracy at bench-class conditioning.
 
 The f32 default (8 rounds) covers cond(N) ~ 1e18 pencils
-(fpencil._cholqr_rounds); the override is a measured-run lever the
-bench adopts from the profiler's accuracy-gated product_pick.  This
+(fpencil._cholqr_rounds); the override is a measured-run lever.  This
 pins the CPU referee result that justified offering the lever at all:
 at cond(N) ~ 3e11 (the bench pencil's class), rounds=4 sits on the same
 f32 Gram noise floor as rounds=8 against the dense f64 pencil.
 
 Reference anchor: the reference solves the same pencil densely per m
 (/root/reference/drift/core/kltransform.py:275-343 eigh_gen); the
-round-count question only exists for the factored TPU path.
+round-count question only exists for the factored f32 path.
 """
 
 import numpy as np

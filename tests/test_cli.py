@@ -95,6 +95,42 @@ def test_makeproducts_queue_script(tmp_path):
     assert "srun" in script.read_text()
 
 
+@pytest.mark.parametrize(
+    "queue_sys, marker", [("pbs", "#PBS"), ("slurm", "#SBATCH"), (None, "#SBATCH")]
+)
+def test_queue_templates_render(tmp_path, queue_sys, marker):
+    """Each remaining scheduler template renders; Slurm is the default."""
+    from click.testing import CliRunner
+
+    from driftscan_tpu.scripts import makeproducts
+
+    out = tmp_path / "out"
+    extra = f"\n    queue_sys: {queue_sys}" if queue_sys else ""
+    cfile = tmp_path / "params.yaml"
+    cfile.write_text(f'config:\n    output_directory: "{out}"{extra}\n')
+    res = CliRunner().invoke(makeproducts.cli, ["queue", str(cfile), "--nosubmit"])
+    assert res.exit_code == 0, res.output
+    text = (out / (queue_sys or "slurm") / "jobscript.sh").read_text()
+    assert marker in text
+    assert "driftscan_tpu.scripts.makeproducts run" in text
+    assert "%(" not in text  # every template key filled
+
+
+def test_queue_refuses_unknown_scheduler(tmp_path):
+    from click.testing import CliRunner
+
+    from driftscan_tpu.scripts import makeproducts
+
+    assert set(makeproducts.script_templates) == {"pbs", "slurm"}
+    cfile = tmp_path / "params.yaml"
+    cfile.write_text(
+        f'config:\n    output_directory: "{tmp_path / "out"}"\n    queue_sys: tpu\n'
+    )
+    res = CliRunner().invoke(makeproducts.cli, ["queue", str(cfile), "--nosubmit"])
+    assert res.exit_code != 0
+    assert "unknown scheduler" in str(res.exception)
+
+
 PIPE_CONFIG = """
 config:
     product_directory:  {prod}

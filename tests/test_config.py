@@ -62,10 +62,9 @@ def test_constructor_args_passed():
 
 
 def test_matmul_precision_default():
-    """The library must pin full-f32 matmul precision: the TPU MXU's
-    default bf16 passes inject ~1e-2 relative noise into the SHT
-    (measured: beam_m TPU-vs-CPU 9.6e-3 at default, 8.7e-7 at highest),
-    violating the reference's rel-1e-4 beam_m tier."""
+    """The library must pin full-f32 matmul precision: reduced-precision
+    f32 matmuls (TF32 on GPU tensor cores, unit roundoff ~5e-4) would
+    violate the reference's rel-1e-4 beam_m tier."""
     import jax
 
     import driftscan_tpu  # noqa: F401  (import applies the config)

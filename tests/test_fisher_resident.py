@@ -15,6 +15,7 @@ covariances) two independent ways:
 import numpy as np
 import pytest
 
+import _referee
 from driftscan_tpu.core import manager
 from driftscan_tpu.parallel import mstep, resident
 
@@ -26,38 +27,6 @@ pytestmark = pytest.mark.slow
 # ---------------------------------------------------------------------
 # first principles
 # ---------------------------------------------------------------------
-
-
-def _dense_fisher(res, clbands, threshold, npol, nl):
-    """Reference Fisher from the product step's outputs, dense f64 host."""
-    m_count = res.evals.shape[0]
-    nbands = len(clbands)
-    out = np.zeros((m_count, nbands, nbands), dtype=np.complex128)
-    beams = np.asarray(res.beam_re, np.float64) + 1j * np.asarray(
-        res.beam_im, np.float64
-    )
-    evecs = np.asarray(res.evecs_re, np.float64) + 1j * np.asarray(
-        res.evecs_im, np.float64
-    )
-    for mi in range(m_count):
-        ev = np.asarray(res.evals[mi], np.float64)
-        keep = ev > threshold
-        if not keep.any():
-            continue
-        rows = evecs[mi][keep]  # (k, n) modes as rows (file layout)
-        F, S = beams.shape[1], beams.shape[2]
-        bt = beams[mi].reshape(F, S, npol, nl)[:, :, 0, :]  # (F, S, nl)
-        g = np.einsum("kfs,fsl->kfl", rows.reshape(-1, F, S), bt)
-        w = 1.0 / (1.0 + ev[keep])
-        projs = [
-            np.einsum("kfl,lfg,qgl->kq", g, np.asarray(cl, np.float64), g.conj())
-            for cl in clbands
-        ]
-        for a in range(nbands):
-            da = projs[a] * w[:, None] * w[None, :]
-            for b in range(nbands):
-                out[mi, a, b] = np.sum(da * projs[b].T)
-    return out
 
 
 def test_fisher_step_first_principles():
@@ -120,7 +89,7 @@ def test_fisher_step_first_principles():
     )
     got = np.asarray(f_re) + 1j * np.asarray(f_im)
 
-    want = _dense_fisher(res, clbands, thr, npol, nl)
+    want = _referee.dense_fisher(res, clbands, thr, npol, nl)
     assert (np.abs(want[0]) > 0).any()  # the test actually retains modes
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-10 * scale)
@@ -337,8 +306,7 @@ def test_resident_fisher_matches_psexact(products):
 def test_resident_fisher_topband_engine(products):
     """The matmul-only top-band KL engine feeds the same Fisher.
 
-    The north-star configuration: retained-band eigensolve + fused
-    Fisher in one dispatch.  Sub-cut modes are exact zeros there, which
+    Retained-band eigensolve + fused Fisher in one dispatch.  Sub-cut modes are exact zeros there, which
     is precisely the set the estimator's threshold mask drops.
     """
     ev, fish_tb, ps = _resident_fisher(products, topband=True)

@@ -2,8 +2,8 @@
 
 The factored pencil's zero eigenvalue is degenerate between the
 svcut/ragged padding directions and genuine zero-signal modes, so eigh
-may return an arbitrarily mixed basis for that cluster (observed on-chip
-at mid scale, where split-complex f32 widens the cluster).  With a
+may return an arbitrarily mixed basis for that cluster (observed at
+mid scale, where split-complex f32 widens the cluster).  With a
 positive subset threshold the batched writer must classify only the
 above-threshold columns — never falling back to the per-m path, which
 costs a recompile per m on the device — and still report a correct

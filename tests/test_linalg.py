@@ -184,7 +184,7 @@ def test_generalised_eigh_bucket_padding(monkeypatch):
 
         assert w.shape == (n,)
         assert v.shape == (n, n)
-        # split mode computes at f32 device precision (TPU policy)
+        # split mode computes at f32 device precision
         np.testing.assert_allclose(w, w_ref, rtol=1e-3, atol=1e-5)
         # N-orthonormality of the padded-solve vectors
         g = v.conj().T @ B @ v

@@ -1,6 +1,6 @@
 """The production SVD/KL batched paths must execute sharded over the
-full virtual device mesh (VERDICT r1 Missing #3: mesh-sharding wired into
-the real pipeline, replacing the reference's rank-partitioned per-m loops
+full virtual device mesh (mesh-sharding wired into the real pipeline,
+replacing the reference's rank-partitioned per-m loops
 at /root/reference/drift/core/beamtransfer.py:716-722 and
 kltransform.py:480-513)."""
 

@@ -292,8 +292,9 @@ def test_bucketed_product_matches_full():
 def test_m_window_streaming_matches_full():
     """BTM + product per m-window == the full-range resident run.
 
-    The HBM streaming axis: at production band limits the full (l, m)
-    tables exceed device memory (66 GB at the north-star scale), so the
+    The device-memory streaming axis: at production band limits the full
+    (l, m) tables exceed device memory (66 GB at 256 freqs x lmax 1006
+    polarised), so the
     pipeline runs per m-window; each window's spectra must match the
     monolithic run exactly.
     """

@@ -1,6 +1,6 @@
 """The device-resident BeamTransfer.generate must write identical products.
 
-VERDICT round 2 item 6: the CLI pipeline (`drift-makeproducts run` ->
+The CLI pipeline (`drift-makeproducts run` ->
 BeamTransfer.generate writing beam.hdf5) must ride the same resident fast
 path as the bench (parallel/resident.py), still writing byte-compatible
 files (reference contract drift/core/beamtransfer.py:447-676).

@@ -1,4 +1,4 @@
-"""The split-complex (TPU) hot paths must reproduce the native-complex
+"""The split-complex hot paths must reproduce the native-complex
 results exactly (same math, different layout)."""
 
 import numpy as np

@@ -90,7 +90,6 @@ def test_simple_svd_split_path(monkeypatch):
     ut_n, s_n = projections.simple_svd(m)
 
     monkeypatch.setattr(backend, "split_complex", lambda: True)
-    monkeypatch.setattr(backend, "device_f32_only", lambda: False)
     ut_s, s_s = projections.simple_svd(m)
 
     np.testing.assert_allclose(s_s, s_n, rtol=1e-8, atol=1e-10)

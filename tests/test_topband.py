@@ -256,7 +256,7 @@ def test_filter_precision_flag_preserves_solution():
     On the CPU backend matmul precision is a no-op, so the solutions
     must be bitwise-stable under the flag — this guards the plumbing
     (kwarg routing, trace-time module-state read), not the numerics,
-    which only the on-chip A/B can measure (doc/design.md 5b8).
+    which only a run on the card can measure.
     """
     az, fz, e = _pencil(23, 96, 64, 40, sig_top=2.0, fg_top=4)
     nret = int((e > CUT).sum())

@@ -1,6 +1,6 @@
 """The fb<->m reshard: a real all-to-all, not an allgather.
 
-VERDICT r1 Missing #4 / Next #6: each participant must exchange only
+Each participant must exchange only
 ~1/P of the array per peer (reference:
 caput.mpiutil.transpose_blocks used at
 /root/reference/drift/core/beamtransfer.py:628-638).

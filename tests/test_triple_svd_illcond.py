@@ -1,6 +1,6 @@
 """Ill-conditioned polarised triple-SVD: split (Gram) vs native path.
 
-VERDICT r1 Next #9: the Gram-eigendecomposition SVD floors singular
+The Gram-eigendecomposition SVD floors singular
 values at ~1e-5 relative; probe polarised beams whose pol-response
 spectrum straddles the polsvcut and confirm the retained subspaces match
 the native (LAPACK-backed) path.  The engineered spectra avoid values

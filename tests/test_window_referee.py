@@ -1,12 +1,9 @@
 """m-window path referee: windowed == full-range == dense complex128.
 
-The north-star runs stream the BTM as m-windows (resident.btm_resident
-``m_range`` + product ``m_lo`` addressing) — a layout no other test
-exercised end-to-end against ground truth.  A round-4 forensic
-(doc/ns_window_ab.json, scratch/ns_window_ab2.py) pinned all three
-representations against each other at a wide-fractional-bandwidth
-(400-800 MHz) feed-sparse cylinder after a flawed probe briefly
-implicated the windowed path; this test keeps that equivalence pinned:
+Production-scale runs stream the BTM as m-windows
+(resident.btm_resident ``m_range`` + product ``m_lo`` addressing).
+This test pins all three representations against each other at a
+wide-fractional-bandwidth (400-800 MHz) feed-sparse cylinder:
 
   1. the windowed table column IS the full-range column (bit-exact),
   2. the windowed product step (m_lo addressing) matches the

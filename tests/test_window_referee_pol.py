@@ -1,29 +1,28 @@
 """Polarised m-window referee: ns1's actual path against dense f64.
 
 tests/test_window_referee.py pins the windowed product path
-unpolarised; the scale-axis north-star (scratch/northstar.py) runs
-npol=4, where the triple-SVD additionally filters pure-polarisation
+unpolarised; the polarised runs (npol=4) are where the triple-SVD additionally filters pure-polarisation
 modes and the pol-diagonal C_l blocks ([0,0] TT+point sources,
 [1,1]/[2,2] polarised synchrotron) enter the pencil.  This test:
 
-  1. windowed == full-range `_spectrum_batch` at npol=4 (the layout
-     every ns1 window used),
-  2. engine evals match a dense complex128 generalised eigensolve
-     built from the step's own SVD-basis beams with the pol-summed
-     contraction  S = sum_p  B_p C_l^{pp} B_p^H
-     (reference algorithm /root/reference/drift/core/kltransform.py:
-     258-341; pol-diagonal blocks per skymodel.py:20-68).
+  1. windowed == full-range `_spectrum_batch` at npol=4 (the windowed
+     layout),
+  2. engine evals match the shared dense complex128 referee
+     (tests/_referee.py) built from the step's own SVD-basis beams with
+     the pol-summed contraction (reference algorithm
+     drift/core/kltransform.py:258-341).
 """
 
 import numpy as np
 import pytest
+
+import _referee
 
 pytestmark = pytest.mark.slow
 
 
 def test_polarised_windowed_product_matches_dense():
     import jax.numpy as jnp
-    import scipy.linalg as sla
 
     import bench
     from driftscan_tpu.parallel import mstep, resident
@@ -74,35 +73,8 @@ def test_polarised_windowed_product_matches_dense():
     )
     ev_engine = np.sort(np.asarray(res.evals)[0])
 
-    bs = (np.asarray(res.beam_re) + 1j * np.asarray(res.beam_im))[0]
-    bs = bs.reshape(F, -1, npol, nl)
-    S_ = bs.shape[1]
-    n = F * S_
-    csl = np.asarray(cl_s, np.float64)  # (npol, npol, nl, F, F)
-    cnl = np.asarray(cl_n, np.float64)
-    b = bs.astype(np.complex128)  # (F, S_, npol, nl)
-    S_d = np.zeros((F, S_, F, S_), np.complex128)
-    N_d = np.zeros((F, S_, F, S_), np.complex128)
-    for p in range(npol):
-        for q in range(npol):
-            if not np.any(csl[p, q]) and not np.any(cnl[p, q]):
-                continue
-            S_d += np.einsum(
-                "fal,lfg,gbl->fagb", b[:, :, p], csl[p, q], b[:, :, q].conj(),
-                optimize=True,
-            )
-            N_d += np.einsum(
-                "fal,lfg,gbl->fagb", b[:, :, p], cnl[p, q], b[:, :, q].conj(),
-                optimize=True,
-            )
-    S_d = S_d.reshape(n, n)
-    N_d = N_d.reshape(n, n) + np.eye(n)
-    S_d = 0.5 * (S_d + S_d.conj().T)
-    N_d = 0.5 * (N_d + N_d.conj().T)
-    w = np.sort(sla.eigh(S_d, N_d, eigvals_only=True))
+    w = _referee.dense_spectrum(_referee.beams_of(res, 0, npol, nl), cl_s, cl_n)
 
-    top = w[-1]
-    sel = w > 1e-3 * top
-    k = int(sel.sum())
+    k, err = _referee.top_spectrum_error(ev_engine, w, 1e-3 * w[-1])
     assert k >= 2
-    np.testing.assert_allclose(ev_engine[-k:], w[-k:], rtol=2e-3)
+    assert err <= 2e-3
